@@ -31,7 +31,7 @@ def main():
     ap.add_argument("--no-mapping", action="store_true")
     ap.add_argument("--pipelined", action="store_true",
                     help="use the dispatch-ahead device pipeline (the "
-                         "production TPU path) instead of per-frame sync")
+                         "fast path) instead of per-frame sync")
     ap.add_argument("--lag", type=int, default=16)
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--out-trajectory", default="CameraTrajectory.txt")

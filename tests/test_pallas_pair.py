@@ -1,14 +1,14 @@
-"""Golden tests for the batched pair-gated best2 kernel
-(ops.pallas_kernels.pair_best2_pallas) against the dense XLA
-formulation it replaces in the mapping hot path (slam/triangulate.py).
+"""Golden tests for the batched pair-gated best2 Triton kernel
+(ops.best2.best2_pallas, run by Pallas's interpreter on the CPU) against
+the dense XLA formulation of the mapping searches (slam/triangulate.py).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from ydorbslam_tpu.ops.best2 import best2_pallas
 from ydorbslam_tpu.ops.hamming import INVALID_DIST, masked_distance_matrix
-from ydorbslam_tpu.ops.pallas_kernels import pair_best2_pallas
 
 B, M, N = 3, 256, 128
 
@@ -44,7 +44,15 @@ def _check(idx_k, b1_k, b2_k, idx_d, b1_d, b2_d):
     assert np.all((np.asarray(idx_k) >= 0) == (b1_d < 10_000))
 
 
+def _kernel(desc_a, attr_a, desc_b, attr_b, mode):
+    ((idx, b1, b2),) = best2_pallas(
+        desc_a, attr_a, desc_b, attr_b, mode, interpret=True
+    )
+    return idx, b1, b2
+
+
 def test_pair_best2_proj_matches_dense():
+    """The fuse gate: projection window, octave range and chi2."""
     rng = np.random.default_rng(0)
     desc_a = jnp.stack([_rand_desc(rng, M) for _ in range(B)])
     desc_b = jnp.stack([_rand_desc(rng, N) for _ in range(B)])
@@ -58,25 +66,47 @@ def test_pair_best2_proj_matches_dense():
     bv = jnp.asarray(rng.uniform(0, 480, (B, N)), jnp.float32)
     boct = jnp.asarray(rng.integers(0, 4, (B, N)), jnp.float32)
     bvalid = jnp.asarray(rng.random((B, N)) > 0.2)
-    z = jnp.zeros((B, M), jnp.float32)
+    # Coordinates on a quarter-pixel grid keep every gate product exact.
+    aur = jnp.round(4 * (au - jnp.asarray(rng.uniform(1, 30, (B, M)),
+                                          jnp.float32))) / 4
+    bur = jnp.where(
+        jnp.asarray(rng.random((B, N)) < 0.6),
+        jnp.round(4 * (bu - jnp.asarray(rng.uniform(1, 30, (B, N)),
+                                        jnp.float32))) / 4,
+        -1.0,
+    )
+    isf2 = 1.0 / 1.44 ** boct / 2000.0  # wide chi2 so some pairs pass
     zb = jnp.zeros((B, N), jnp.float32)
     attr_a = jnp.stack(
-        [au, av, z, rad, rad, alo, ahi, avalid.astype(jnp.float32)], -1
+        [au, av, aur, rad, rad, alo, ahi, avalid.astype(jnp.float32)], -1
     )
     attr_b = jnp.stack(
-        [bu, bv, zb, boct, bvalid.astype(jnp.float32), zb, zb, zb], -1
+        [bu, bv, bur, boct, bvalid.astype(jnp.float32), isf2, zb, zb], -1
     )
-    idx, b1, b2 = pair_best2_pallas(desc_a, attr_a, desc_b, attr_b, mode="proj")
+    idx, b1, b2 = _kernel(desc_a, attr_a, desc_b, attr_b, "fuse")
+    any_gated = 0
     for p in range(B):
+        du = bu[p][None, :] - au[p][:, None]
+        dv = bv[p][None, :] - av[p][:, None]
+        dur = bur[p][None, :] - aur[p][:, None]
+        mono2 = du * du + dv * dv
+        stereo = bur[p][None, :] >= 0
+        chi2_ok = jnp.where(
+            stereo, (mono2 + dur * dur) * isf2[p][None, :] <= 7.81,
+            mono2 * isf2[p][None, :] <= 5.99,
+        )
         gate = (
             avalid[p][:, None] & bvalid[p][None, :]
             & (boct[p][None, :] >= alo[p][:, None])
             & (boct[p][None, :] <= ahi[p][:, None])
-            & (jnp.abs(bu[p][None, :] - au[p][:, None]) <= rad[p][:, None])
-            & (jnp.abs(bv[p][None, :] - av[p][:, None]) <= rad[p][:, None])
+            & (jnp.abs(du) <= rad[p][:, None])
+            & (jnp.abs(dv) <= rad[p][:, None])
+            & chi2_ok
         )
+        any_gated += int(jnp.sum(gate))
         idx_d, b1_d, b2_d = _dense_best2(desc_a[p], desc_b[p], gate)
         _check(idx[p], b1[p], b2[p], idx_d, b1_d, b2_d)
+    assert any_gated > 100  # the test actually exercises passing gates
 
 
 def test_pair_best2_epi_matches_dense():
@@ -103,7 +133,7 @@ def test_pair_best2_epi_matches_dense():
     attr_b = jnp.stack(
         [bu, bv, bs2, boct, bvalid.astype(jnp.float32), zb, zb, zb], -1
     )
-    idx, b1, b2 = pair_best2_pallas(desc_a, attr_a, desc_b, attr_b, mode="epi")
+    idx, b1, b2 = _kernel(desc_a, attr_a, desc_b, attr_b, "epi")
     any_gated = 0
     for p in range(B):
         num = la[p][:, None] * bu[p][None, :] + lb[p][:, None] * bv[p][None, :] + lc[p][:, None]
@@ -119,9 +149,9 @@ def test_pair_best2_epi_matches_dense():
 
 
 # ---------------------------------------------------------------------
-# End-to-end parity: the Pallas mapping-search path (kernel, interpret
-# mode on CPU) must produce EXACTLY the map updates of the dense path
-# on a real map built by a short synthetic run.
+# End-to-end parity: the mapping searches through the kernel (Pallas
+# interpreter on the CPU) must produce EXACTLY the map updates of the
+# XLA reference on a real map built by a short synthetic run.
 # ---------------------------------------------------------------------
 
 
@@ -170,7 +200,11 @@ def _trees_equal(a, b):
 
 @pytest.mark.slow
 def test_mapping_searches_pallas_path_matches_dense(monkeypatch):
+    from ydorbslam_tpu.ops import best2 as b2
     from ydorbslam_tpu.slam import triangulate as tri
+
+    def kernel_interpret(*args):
+        return b2.best2_pallas(*args, interpret=True)
 
     rng = np.random.default_rng(7)
     sys_ = _small_system(rng)
@@ -183,10 +217,11 @@ def test_mapping_searches_pallas_path_matches_dense(monkeypatch):
     cam = sys_.cam
     sf, nl = sys_.cfg.orb.scale_factor, sys_.cfg.orb.n_levels
 
+    monkeypatch.setattr(tri, "best2", b2.best2_reference)
     m_dense = tri.triangulate_neighbors_batch(
         m, kf, nids, nok, jnp.int32(sys_.n_keyframes), cam, sf, nl
     )
-    monkeypatch.setattr(tri, "_use_pallas_matchers", lambda: True)
+    monkeypatch.setattr(tri, "best2", kernel_interpret)
     m_pallas = tri.triangulate_neighbors_batch(
         m, kf, nids, nok, jnp.int32(sys_.n_keyframes), cam, sf, nl
     )
@@ -194,8 +229,8 @@ def test_mapping_searches_pallas_path_matches_dense(monkeypatch):
     n_new = int(jnp.sum(m_pallas.mp_valid)) - int(jnp.sum(m.mp_valid))
     assert n_new >= 0
 
-    monkeypatch.setattr(tri, "_use_pallas_matchers", lambda: False)
+    monkeypatch.setattr(tri, "best2", b2.best2_reference)
     f_dense = tri.fuse_neighbors_batch(m_dense, kf, nids, nok, cam, sf, nl)
-    monkeypatch.setattr(tri, "_use_pallas_matchers", lambda: True)
+    monkeypatch.setattr(tri, "best2", kernel_interpret)
     f_pallas = tri.fuse_neighbors_batch(m_dense, kf, nids, nok, cam, sf, nl)
     _trees_equal(f_dense, f_pallas)

@@ -1,11 +1,12 @@
-"""Golden parity: proj_best2_pallas (interpret) vs the XLA matcher path.
+"""Golden parity: the best2 Triton kernel (Pallas interpreter) vs the
+XLA matcher path.
 
-The production TPU step runs the Pallas projection-gated matcher
-(ops/pallas_kernels.proj_best2_pallas); CPU runs the dense XLA
-formulation.  These tests pin both to identical assignments on the
-same random problem, exercising every gate the kernel evaluates
-on-chip (window, octave range, stereo right-x coherence, validity,
-narrow/wide radii)."""
+On the GPU the tracking matchers run the projection-gated Triton kernel
+(ops/best2.best2_pallas); elsewhere they run the dense XLA reference.
+Pallas's interpreter runs the kernel body on the CPU, so these tests pin
+both to identical results on the same random problem, exercising every
+gate the kernel evaluates (window, octave range, stereo right-x
+coherence, validity, narrow/wide radii)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -71,7 +72,7 @@ def _jnp_best2(src_desc, proj_valid, curr, pair_mask):
 
 @pytest.mark.parametrize("check_ur", [False, True])
 def test_kernel_matches_xla_gates(problem, check_ur):
-    from ydorbslam_tpu.ops.pallas_kernels import proj_best2_pallas
+    from ydorbslam_tpu.ops.best2 import best2_pallas
 
     p = problem
     curr = p["curr"]
@@ -80,10 +81,12 @@ def test_kernel_matches_xla_gates(problem, check_ur):
         p["u"], p["v"], p["ur"], p["rad_n"], rad_w,
         p["oct_lo"], p["oct_hi"], p["valid"],
     )
-    (i_n, b_n, s_n), (i_w, b_w, s_w) = proj_best2_pallas(
-        p["src_desc"], attr_a, curr.desc, mt._pack_cur_attr(curr),
-        check_ur=check_ur,
+    out = best2_pallas(
+        p["src_desc"][None], attr_a[None], curr.desc[None],
+        mt._pack_cur_attr(curr)[None], "window2", check_ur=check_ur,
+        interpret=True,
     )
+    (i_n, b_n, s_n), (i_w, b_w, s_w) = [tuple(x[0] for x in o) for o in out]
     for rad, (idx, b1, b2) in [(p["rad_n"], (i_n, b_n, s_n)),
                                (rad_w, (i_w, b_w, s_w))]:
         du = jnp.abs(curr.uv[None, :, 0] - p["u"][:, None])
@@ -115,7 +118,12 @@ def test_kernel_matches_xla_gates(problem, check_ur):
 
 def test_full_matchers_pallas_vs_xla(problem, monkeypatch):
     """match_local_points / match_motion_model_two / match_dense produce
-    identical assignments through both formulations."""
+    identical assignments through the kernel and the XLA reference."""
+    from ydorbslam_tpu.ops import best2 as b2
+
+    def kernel_interpret(*args):
+        return b2.best2_pallas(*args, interpret=True)
+
     p = problem
     rng = np.random.default_rng(11)
     curr = p["curr"]
@@ -153,7 +161,9 @@ def test_full_matchers_pallas_vs_xla(problem, monkeypatch):
 
     results = {}
     for use in (False, True):
-        monkeypatch.setattr(mt, "_use_pallas_matchers", lambda u=use: u)
+        monkeypatch.setattr(
+            mt, "best2", kernel_interpret if use else b2.best2_reference
+        )
         a1, d1 = mt.match_local_points(*args_local, **kw)
         m1, m2 = mt.match_motion_model_two(*args_motion, **mkw)
         a3, d3 = mt.match_dense(*args_dense, max_dist=50, ratio=0.7)

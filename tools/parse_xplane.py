@@ -1,10 +1,9 @@
 """Minimal XSpace (.xplane.pb) parser: per-op device-time summary.
 
-``jax.profiler.trace`` writes XLA op timings as an XSpace protobuf, but
-this image ships no xplane_pb2 and the tensorboard-plugin converter is
-broken against its tensorflow build.  This hand-rolled wire-format
-parser extracts what kernel work actually costs on the TPU: every
-XEvent on the device planes, aggregated by op-metadata name.
+``jax.profiler.trace`` writes device timings as an XSpace protobuf.
+This hand-rolled wire-format parser needs no protobuf package: it
+extracts what kernel work costs on the GPU, every XEvent on the
+``/device:GPU:<n>`` planes, aggregated by event name.
 
 Usage:
   python tools/parse_xplane.py <trace_dir_or_xplane.pb> [top_n]
@@ -93,7 +92,7 @@ def summarize(path: str, top_n: int = 30):
         if fno != 1 or wt != 2:
             continue
         pname, lines, meta = parse_plane(v)
-        if "TPU" not in pname and "/device:" not in pname:
+        if not pname.startswith("/device:GPU:"):
             continue
         per_op = defaultdict(lambda: [0, 0])  # name -> [total_ps, count]
         for line in lines:
@@ -121,5 +120,6 @@ def summarize(path: str, top_n: int = 30):
 
 
 if __name__ == "__main__":
-    summarize(sys.argv[1] if len(sys.argv) > 1 else "/tmp/jaxtrace",
-              int(sys.argv[2]) if len(sys.argv) > 2 else 30)
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    summarize(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else 30)

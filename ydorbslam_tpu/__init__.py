@@ -1,47 +1,47 @@
-"""ydorbslam_tpu — a TPU-native stereo/RGB-D visual SLAM framework.
+"""ydorbslam_tpu — a stereo/RGB-D visual SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-YDORBSLAM (an ORB-SLAM2 reimplementation, reference: /root/reference):
-ORB pyramid extraction, stereo/RGB-D frame tracking, covisibility-graph
-local mapping with local bundle adjustment, descriptor-retrieval loop
-detection, Sim3 + essential-graph correction, global BA, EPnP
-relocalization, and TUM-format trajectory export.
+A from-scratch JAX/XLA re-design of the capabilities of YDORBSLAM (an
+ORB-SLAM2 reimplementation in C++): ORB pyramid extraction,
+stereo/RGB-D frame tracking, covisibility-graph local mapping with local
+bundle adjustment, descriptor-retrieval loop detection, Sim3 +
+essential-graph correction, global BA, EPnP relocalization, and
+TUM-format trajectory export.  It runs on an NVIDIA GPU, or on several
+for the sharded parts.
 
-Design principles (TPU-first, NOT a port):
+Design principles (NOT a port):
   * All per-frame state is fixed-capacity arrays with validity masks —
     no dynamic shapes under jit.
   * The map is a struct-of-arrays (SoA) pytree of device arrays; graph
     updates are segment/scatter ops, not pointer surgery under mutexes.
-  * Hot kernels (Hamming matching, FAST, descriptor scoring) run on the
-    MXU/VPU via Pallas or matmul-shaped jnp.
+  * Data association is dense masked Hamming search; the gated
+    best/second search has a Triton kernel (ops/best2.py), everything
+    else is plain jnp that XLA fuses.
   * Optimization (pose, local/global BA, Sim3 pose graph) is an analytic
     Levenberg–Marquardt with Schur complement in pure JAX, replacing g2o.
-  * Multi-chip scaling shards observations/map blocks over a
+  * Multi-device scaling shards observations/map blocks over a
     jax.sharding.Mesh with psum-reduced normal equations, replacing the
     reference's thread+mutex concurrency.
 """
 
 __version__ = "0.1.0"
 
-import jax as _jax
-
-# SLAM estimation is numerically sensitive and TPUs have no fast float64:
-# run all float32 matmuls at full f32 precision on the MXU (6-pass
-# bf16x6) instead of the default fast bf16 path.  The descriptor/count
-# matmuls that dominate FLOPs are integer-typed and unaffected.
-_jax.config.update("jax_default_matmul_precision", "highest")
-
-# Persistent compilation cache: the fused frame-step programs are large
-# and (remote-)compilation is the dominant startup cost; cache them
-# across processes.
 import os as _os
 
-_cache_dir = _os.environ.get(
-    "YDORB_JAX_CACHE", _os.path.expanduser("~/.cache/ydorbslam_jax")
-)
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
+import jax as _jax
+
+# Pose and BA estimation need full float32 matrix products: on the GPU
+# the default precision may run f32 dots in TF32 (about three decimal
+# digits), which moves LM and pose results.
+_jax.config.update("jax_default_matmul_precision", "highest")
+
+# Persistent compilation cache.  JAX reads JAX_COMPILATION_CACHE_DIR
+# itself; without it, compiled programs go to .jax_cache/ at the root of
+# the checkout.  The path is fixed because it is part of the cache key.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache",
+        ),
+    )

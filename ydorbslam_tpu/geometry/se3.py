@@ -4,8 +4,8 @@ Replaces the reference's g2o ``SE3Quat`` / Eigen machinery
 (reference: src/converter.hpp:24-35, thirdParty/g2o/g2o/types/sba) with
 pure-functional JAX ops.  All functions are shape-polymorphic over
 leading batch dimensions via explicit broadcasting (use ``jax.vmap`` for
-batching), and run in float32 by default — TPU has no fast float64, so
-numerical conditioning (world-centering, damping) is handled by the
+batching), and run in float32 by default — accelerators have no fast
+float64, so numerical conditioning (world-centering, damping) is handled by the
 optimizers instead of extended precision.
 
 Conventions:

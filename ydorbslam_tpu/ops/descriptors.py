@@ -5,7 +5,7 @@ Replaces the reference's intensity-centroid orientation
 (src/orbExtractor.cpp:422-454 over the hard-coded 512-point pattern at
 :56-313).
 
-TPU-first design decisions:
+Design decisions:
   * Keypoint neighborhoods are gathered ONCE into fixed-size uint8
     patches ((K, 45, 45)); orientation, the descriptor blur and the
     BRIEF tests are all dense batched math on those patches — no
@@ -13,7 +13,7 @@ TPU-first design decisions:
   * Rotation steering is quantized to 32 angle bins (11.25 deg).  The
     rotated-and-rounded sample offsets for each bin are baked into a
     constant signed selection tensor, so sampling the 512 test points
-    becomes ONE bf16 matmul on the MXU: diff = patch_flat @ D[bin]^T,
+    becomes ONE integer matmul: diff = patch_flat @ D[bin]^T,
     bit = diff < 0.  (The ORB paper itself steers with 12-deg
     quantization; the reference steers per-keypoint with cvRound — the
     residual <=5.6 deg quantization error shifts samples by <1.3 px,
@@ -117,14 +117,9 @@ def extract_patches(image: jax.Array, uv: jax.Array, half: int) -> jax.Array:
     p = 2 * half + 1
     ui = jnp.round(uv[:, 0]).astype(jnp.int32)
     vi = jnp.round(uv[:, 1]).astype(jnp.int32)
-    # Row gather first, then a vmapped column slice: a direct vmapped
-    # 2-D dynamic_slice lowers on TPU to a K-iteration while loop
-    # (2.0 ms at K=217), a 2-D advanced-index gather is 4x the whole
-    # step, and take_along_axis on the lane dim is 5.3 ms; the major-dim
-    # row gather is a fast parallel HLO and the remaining per-keypoint
-    # slice is lane-only (0.89 ms measured).  A per-keypoint DMA Pallas
-    # kernel is blocked by Mosaic's 8-aligned dynamic-slice-shape rule
-    # (patches are 45x45).
+    # Row gather first, then a vmapped column slice: the major-dim row
+    # gather is one parallel HLO and the remaining per-keypoint slice is
+    # along the minor dimension only.
     d = jnp.arange(-half, half + 1)
     rows = image[jnp.clip(vi[:, None] + d[None, :], 0, image.shape[0] - 1)]
 
@@ -160,18 +155,17 @@ def brief_from_patches(patches: jax.Array, angles: jax.Array) -> jax.Array:
 
     Angle is quantized to 32 bins; each bin's rotated test pairs are a
     constant signed selection matrix, so all 512 samples + 256
-    comparisons per keypoint collapse into one bf16 matmul (see module
+    comparisons per keypoint collapse into one integer matmul (see module
     docstring).  Packing is little-endian into 8 uint32 lanes.
     """
     K = patches.shape[0]
-    # INT8 MXU path: D is a {-1, 0, +1} selection tensor and the blurred
+    # int8 path: D is a {-1, 0, +1} selection tensor and the blurred
     # patch is quantized to the reference's own uint8 blur output
     # (cv::GaussianBlur on CV_8U rounds to integer intensities,
     # src/orbExtractor.cpp:386); (patch-128) fits int8 exactly, so the
     # comparison d = I(p1) - I(p2) is EXACT integer arithmetic in an
-    # int8 x int8 -> int32 matmul — no bf16 near-tie bit flips, and
-    # ~4x less HBM traffic + one MXU pass instead of the f32 bf16x3
-    # formulation this replaces.
+    # int8 x int8 -> int32 matmul — no floating-point near-tie bit
+    # flips, and a quarter of the bytes of a float32 formulation.
     D8 = jnp.asarray(_binned_diff_tensor().astype(np.int8))  # (32,256,1521)
     flat8 = (
         jnp.clip(jnp.round(patches.reshape(K, BRIEF_P * BRIEF_P)), 0, 255)
@@ -181,9 +175,8 @@ def brief_from_patches(patches: jax.Array, angles: jax.Array) -> jax.Array:
     bins = bins % N_ANGLE_BINS
     onehot = jax.nn.one_hot(bins, N_ANGLE_BINS, dtype=jnp.int8)  # (K,32)
     # (32,K,256): every bin's comparison for every keypoint — 32x
-    # redundant MACs, but int8 MXU throughput makes this cheaper than
-    # any gather formulation on TPU (take_along_axis lowers to a
-    # sequential gather, measured ~9 ms for the same selection).
+    # redundant MACs traded for a dense matmul instead of a per-keypoint
+    # gather of the selected bin.
     diffs = jnp.einsum(
         "kp,bsp->bks", flat8, D8, preferred_element_type=jnp.int32
     )

@@ -6,7 +6,7 @@ redistribution, intensity-centroid orientation, Gaussian blur, steered
 BRIEF — and ``Frame``'s post-processing (undistortion,
 src/frame.cpp:193-211).
 
-TPU-first shape contract: the output is a fixed-capacity
+Shape contract: the output is a fixed-capacity
 ``FrameFeatures`` struct (N = padded n_features) with a validity mask.
 Every downstream stage (matching, triangulation, BA) consumes these
 dense masked arrays — nothing in the pipeline ever has a data-dependent
@@ -14,7 +14,7 @@ shape, so the whole frontend compiles once and stays on-chip.
 
 The reference's 64x48 occupancy grid for O(1) area queries
 (src/frame.hpp:136-139) is intentionally dropped: with N<=1024 dense
-masked distance tests on the VPU beat grid gather/scatter on TPU.
+masked distance tests replace grid gather/scatter.
 """
 from __future__ import annotations
 
@@ -110,12 +110,6 @@ def extract_orb(
     budgets = level_budgets(n_features, n_levels, scale_factor)
     scales = scale_factors(n_levels, scale_factor)
 
-    # Fused Pallas FAST+NMS on TPU; XLA formulation elsewhere (and as
-    # the golden reference in tests).
-    use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from .pallas_kernels import fast_score_nms_pallas
-
     uvs, patches_l = [], []
     resps, octs, valids = [], [], []
     for level in range(n_levels):
@@ -123,17 +117,13 @@ def extract_orb(
         k = budgets[level]
         if k == 0:
             continue
-        if use_pallas:
-            score = fast_score_nms_pallas(lvl, DETECT_BORDER)
-        else:
-            score = fast_score_map(lvl)
-            score = nms_and_border(score, DETECT_BORDER)
+        score = nms_and_border(fast_score_map(lvl), DETECT_BORDER)
         score = two_threshold_mask(score, 32, float(th_high), float(th_low))
         uv_l, resp, valid = select_topk_cells(score, k)
 
         # ONE raw uint8 patch per keypoint feeds orientation, the
-        # descriptor blur AND the BRIEF tests (gathers are byte-bound
-        # on TPU; the reference's pyramid is uint8 anyway).
+        # descriptor blur AND the BRIEF tests (gathers are byte-bound;
+        # the reference's pyramid is uint8 anyway).
         lvl_u8 = jnp.clip(jnp.round(lvl), 0.0, 255.0).astype(jnp.uint8)
         pad = jnp.pad(lvl_u8, RAW_HALF, mode="edge")
         patch = extract_patches(pad, uv_l + RAW_HALF, RAW_HALF)

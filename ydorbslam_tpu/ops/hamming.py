@@ -7,10 +7,10 @@ ratio tests, mutual-best checks, and the 30-bin rotation-consistency
 histogram (src/orbMatcher.cpp:827-853).
 
 Distances are computed as dense (M, N) matrices in one shot —
-XOR + ``lax.population_count`` on uint32[8] lanes, pure VPU work that
-XLA fuses; a Pallas tiled variant lives in ops/pallas_kernels.py for
-large M*N.  The reference's "search in area / by projection / by BoW
-node" pruning strategies all become *masks* on this matrix, which is
+XOR + ``lax.population_count`` on uint32[8] lanes, elementwise work that
+XLA fuses; the gated best/second search over large M*N has a Triton
+kernel in ops/best2.py.  The reference's "search in area / by
+projection / by BoW node" pruning strategies all become *masks* on this matrix, which is
 both simpler and a better fit for the hardware than gather-heavy
 candidate lists.
 """

@@ -4,7 +4,7 @@ Replaces the reference's quadtree redistribution
 (``OrbExtractor::distributeQuadTree``, src/orbExtractor.cpp:455-544):
 the quadtree's purpose is to keep at most ~1 feature per adaptive cell
 while spending the per-level budget on the highest responses.  The
-TPU-native equivalent with static shapes:
+equivalent with static shapes:
 
   1. 3x3 NMS on the score map (done in fast.py),
   2. one winner per fixed 8x8 cell (a reshape + argmax reduction —

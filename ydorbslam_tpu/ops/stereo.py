@@ -5,7 +5,7 @@ descriptor search + SAD subpixel refinement + parabola fit +
 median-disparity outlier cut) and ``Frame::computeStereoFromRGBD``
 (src/frame.cpp:212-222: depth lookup -> virtual right-x).
 
-TPU formulation: the per-row candidate lists become a dense masked
+Formulation: the per-row candidate lists become a dense masked
 (N, N) Hamming matrix (row band + octave + disparity-range masks); the
 per-keypoint SAD slide becomes a batched (N, 11, 21) strip correlation
 evaluated for all 8 octaves with a select — everything static-shaped,
@@ -44,22 +44,7 @@ def fill_depth_from_rgbd(
     h, w = depth_image.shape
     ui = jnp.clip(jnp.round(feats.uv_raw[:, 0]).astype(jnp.int32), 0, w - 1)
     vi = jnp.clip(jnp.round(feats.uv_raw[:, 1]).astype(jnp.int32), 0, h - 1)
-    if jax.default_backend() == "tpu":
-        # K-point 2-D lookup as row-select matmul + masked lane reduce:
-        # a fancy-index gather lowers to a sequential loop on TPU
-        # (measured ~2.5 ms for 1024 points); the one-hot row matmul is
-        # MXU work + one (K, W) elementwise pass.  HIGHEST precision
-        # keeps the selected f32 values exact (one-hot rows sum a single
-        # product).
-        oh_v = (vi[:, None] == jnp.arange(h)[None, :]).astype(jnp.float32)
-        rows = jax.lax.dot(
-            oh_v, depth_image.astype(jnp.float32),
-            precision=jax.lax.Precision.HIGHEST,
-        )  # (K, W)
-        sel_u = ui[:, None] == jnp.arange(w)[None, :]
-        d = jnp.sum(jnp.where(sel_u, rows, 0.0), axis=1)
-    else:
-        d = depth_image[vi, ui]
+    d = depth_image[vi, ui]
     ok = feats.valid & (d > 0.0)
     right_u = jnp.where(ok, feats.uv[:, 0] - cam.bf / jnp.maximum(d, 1e-6), -1.0)
     depth = jnp.where(ok, d, -1.0)

@@ -2,14 +2,14 @@
 
 Replaces ``PnPsolver`` (src/pnpSolver.cpp): the reference wraps EPnP
 (4 control points, barycentric 12x12 SVD, beta cases + Gauss-Newton)
-in a sequential adaptive RANSAC.  TPU-native redesign (documented
+in a sequential adaptive RANSAC.  Batched redesign (documented
 deviation): minimal sets of 6 points solved by the direct linear
 transform on NORMALIZED image coordinates — one (12, 12) SVD per
 hypothesis, vmapped over the whole hypothesis budget at once — followed
 by SO(3) projection (SVD orthonormalization) and the same per-octave
 chi-square inlier gate (pnpSolver.hpp:100-101).  A 6-point DLT inside a
-256-hypothesis batch is more robust per-FLOP on the MXU than EPnP's
-branchy beta cases, and the final accuracy comes from the pose-only LM
+256-hypothesis batch is more robust per-FLOP in a vmapped batch than
+EPnP's branchy beta cases, and the final accuracy comes from the pose-only LM
 refinement that follows (reference does the same, tracking.cpp:693).
 """
 from __future__ import annotations

@@ -9,11 +9,11 @@ estimate per episode); the Huber kernel is dropped from episode index 3
 onward (reference ``if(epi==2) setRobustKernel(0)`` takes effect the
 following episode).
 
-TPU formulation: the per-observation algebra is fully FLAT — Jacobian
-components are individual (N,) lanes-dense arrays and the 6x6 normal
-equations are 27 masked reductions stacked into one (N, 28) sum (the
-(N, 3, 6) vmapped layout runs 128-wide vector lanes at <15%
-occupancy).  This runs inside the frame-rate hot path twice per frame
+Formulation: the per-observation algebra is fully FLAT — Jacobian
+components are individual (N,) arrays and the 6x6 normal equations are
+27 masked reductions stacked into one (N, 28) sum (the (N, 3, 6)
+vmapped layout keeps 3- and 6-wide minor dimensions on every
+elementwise op).  This runs inside the frame-rate hot path twice per frame
 (motion + local-map tracking), so the LM loop also CARRIES the normal
 equations of the current pose between iterations: one projection pass
 per iteration instead of the naive two (the step pass at T equals the
@@ -100,9 +100,8 @@ def _normal_equations_flat(cam, T, obs: PoseObservations, active, use_huber,
     Jr = (-a, zero, -cr, -cr * y, -(a * z - cr * x), a * y)
 
     # Whitened-Jacobian matmul: H = J J^T, b = J r as ONE (6, 3N) x
-    # (3N, ·) MXU contraction instead of 27 separately-stacked (N,)
-    # reductions — the reduction storm dominated the unrolled LM's
-    # per-iteration cost.  sqrt-weighting is algebraically identical to
+    # (3N, ·) contraction instead of 27 separately-stacked (N,)
+    # reductions.  sqrt-weighting is algebraically identical to
     # the weighted products (w * x * y == (sqrt(w) x)(sqrt(w) y)).
     sw_u = jnp.sqrt(wu_h)
     sw_r = jnp.sqrt(wr_h)
@@ -191,12 +190,10 @@ def _lm_refine(cam, T0, obs: PoseObservations, active, iters, use_huber, delta2)
         cam, T0, obs, active, use_huber, delta2
     )
     # UNROLLED, not lax.fori_loop: each iteration is ~50 elementwise ops
-    # on (N,) = one-vreg arrays plus a 6x6 solve — pure op-sequencing
-    # overhead.  A TPU while loop synchronizes every iteration; measured
-    # 60x slower than straight-line code for the same math (the XLA
-    # scheduler overlaps/fuses across unrolled iterations).  Compile
-    # time grows (80 inlined iterations per pose solve) but precompile
-    # absorbs it.
+    # on small (N,) arrays plus a 6x6 solve, so a device-side loop would
+    # pay its per-iteration control overhead on almost no work, while
+    # XLA fuses across unrolled iterations.  Compile time grows (80
+    # inlined iterations per pose solve) but precompile absorbs it.
     state = (T0, H0, b0, jnp.float32(1e-3), cost0)
     for k in range(iters):
         state = body(k, state)

@@ -12,7 +12,7 @@ measurement S_ji is
 Jacobians via jax.jacfwd on left-multiplied tangent perturbations —
 exact, batched over all edges at once.  The normal equations assemble
 with segment-sums into a dense (7V, 7V) system solved by Cholesky
-(V <= a few hundred keyframes: MXU-friendly).  Fixed vertices (the loop
+(V <= a few hundred keyframes: small dense algebra).  Fixed vertices (the loop
 keyframe, reference optimizer.cpp:545) get identity rows.
 """
 from __future__ import annotations

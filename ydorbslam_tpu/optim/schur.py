@@ -9,7 +9,7 @@ globalBundleAdjust) — with an explicit, fully-batched implementation:
     makes landmark marginalization a per-point 3x3 inverse (vmapped),
   * the reduced camera system S (6C x 6C) is assembled with one
     segment-sum over observation pairs and solved with dense Cholesky —
-    for C <= a few hundred cameras this is MXU-friendly and exact,
+    for C <= a few hundred cameras this is small dense algebra and exact,
   * the LM loop is a fixed-iteration ``fori``-style Python loop with
     accept/reject damping; "edge outlier demotion" is a weight mask.
 
@@ -70,9 +70,9 @@ class BAProblem(NamedTuple):
 def inv3x3(M: jax.Array) -> jax.Array:
     """Closed-form batched 3x3 inverse (adjugate / det).
 
-    ``jnp.linalg.inv`` on batches of tiny matrices lowers to per-matrix
-    LU on TPU and is catastrophically slow through this toolchain; the
-    cofactor formula is pure elementwise VPU work.
+    ``jnp.linalg.inv`` on batches of tiny matrices lowers to a batched
+    LU factorization; the cofactor formula is pure elementwise work that
+    XLA fuses into its producers.
     """
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
@@ -121,10 +121,9 @@ def _pcg_solve_blocks(S: jax.Array, b: jax.Array, iters: int = 128) -> jax.Array
     """Solve S x = b for block-structured S (C,C,6,6), b (C,6) with
     BLOCK-Jacobi preconditioned conjugate gradients.
 
-    Dense LU/Cholesky of the (6C, 6C) reduced system is latency-bound on
-    TPU (sequential panel factorization); PCG is pure matmul work on the
-    MXU.  The preconditioner must be the full 6x6 diagonal block —
-    scalar Jacobi stagnates/diverges on real BA systems (pose blocks
+    Dense LU/Cholesky of the (6C, 6C) reduced system is a sequential
+    panel factorization; PCG is pure matmul work.  The preconditioner
+    must be the full 6x6 diagonal block — scalar Jacobi stagnates/diverges on real BA systems (pose blocks
     couple rotation and translation strongly).
     """
     C = S.shape[0]
@@ -164,10 +163,9 @@ def _cholesky_solve_blocks(S: jax.Array, b: jax.Array) -> jax.Array:
     """Solve S x = b for block-structured S (C,C,6,6), b (C,6) by dense
     Cholesky of the (6C, 6C) system.
 
-    XLA's blocked Cholesky + triangular solves run this in ~0.1 ms at
-    C=32 where the 48-iteration PCG fori_loop costs 13 ms (each tiny
-    matvec iteration pays a full TPU loop-step synchronization).  S is
-    fully assembled (and psum-replicated in the sharded path) before
+    One blocked Cholesky + triangular solves instead of a 48-iteration
+    PCG loop whose every tiny matvec pays a loop step.  S is fully
+    assembled (and psum-replicated in the sharded path) before
     the solve, so a direct factorization is legal in both paths; PCG
     (_pcg_solve_blocks) is kept for problems too large to factor."""
     C = S.shape[0]
@@ -247,9 +245,8 @@ def _lm_iteration(cam, T_all, p_w, prob: BAProblem, active, lam, use_huber):
     fixed_pt = ~prob.pt_valid
     Hpp_inv = jnp.where(fixed_pt[:, None, None], 0.0, Hpp_inv)
 
-    # --- MXU one-hot assembly -----------------------------------------
-    # TPU scatter (segment_sum) serializes badly; instead every
-    # "accumulate into camera c" becomes a matmul against the one-hot
+    # --- one-hot assembly -----------------------------------------------
+    # Every "accumulate into camera c" becomes a matmul against the one-hot
     # observation->camera incidence E (P,O,C).  This also eliminates the
     # reference-style (P,O,O) pair enumeration for the Schur term:
     #   U[p,c] = sum_o E[p,o,c] BHinv[p,o]   (6,3)
@@ -323,8 +320,8 @@ def _lm_iteration(cam, T_all, p_w, prob: BAProblem, active, lam, use_huber):
 # Flat (lane-major) LM path.
 #
 # The vmapped formulation above keeps per-observation tensors shaped
-# (P, O, 3, 6) — the minor dimensions are 3/6, so every elementwise op
-# runs on 128-wide TPU lanes at <5% occupancy.  The production path
+# (P, O, 3, 6) — the minor dimensions are 3/6 on every elementwise op.
+# The production path
 # below flattens observations to Q = P*O and unrolls the small-matrix
 # algebra into individual (Q,) component arrays: all elementwise work is
 # lane-dense, the camera reduction is ONE (C, Q) @ (Q, 42) matmul
@@ -338,10 +335,9 @@ def _po_flat(a: jax.Array) -> jax.Array:
     """(P, O, ...) -> (Q, ...) in O-MAJOR order (q = o * P + p).
 
     O-major makes every per-point reduction a contiguous
-    ``reshape(O, P) -> sum(axis=0)``: a SUBLANE reduction over
-    lane-dense (O, P) tiles.  The previous point-major layout reduced
-    (P, O) rows with O=16 minor — 12.5% lane occupancy on (8, 128)
-    tiles, measured as ~30% of the whole local-BA iteration time."""
+    ``reshape(O, P) -> sum(axis=0)``: a reduction over the major axis
+    with P contiguous in memory, instead of reducing short (P, O) rows
+    with O=16 minor."""
     return jnp.swapaxes(a, 0, 1).reshape((-1,) + a.shape[2:])
 
 
@@ -461,58 +457,6 @@ class _FlatSystem(NamedTuple):
     cost: jax.Array  # () robustified total, psum'd
 
 
-def _flat_system_kernel(
-    cam, T_all, p_w, prob: BAProblem, f: _FlatObs, active_flat,
-    use_huber, axis=None,
-) -> _FlatSystem:
-    """Kernel-backed observation pass (optim/lm_kernel.py): the whole
-    per-observation column computation runs as ONE Pallas sweep; only
-    the gathers, the incidence matmul and the final reductions stay in
-    XLA.  Numerically the same formulas as the XLA body below (shared
-    golden test: tests/test_lm_kernel.py)."""
-    from .lm_kernel import NIN, lm_obs_pallas
-
-    C, P, O = prob.C, prob.P, prob.obs_cam.shape[1]
-    Q = O * P
-    Tf = T_all.reshape(C, 16)[f.cam_idx]  # (Q,16) row gather
-    Rr = Tf[:, jnp.array([0, 1, 2, 4, 5, 6, 8, 9, 10])].T  # (9,Q)
-    tt = Tf[:, jnp.array([3, 7, 11])].T  # (3,Q)
-    pw = p_w[f.p_idx].T  # (3,Q)
-    one = jnp.ones((1, Q), jnp.float32)
-    inp = jnp.concatenate(
-        [
-            Rr, tt, pw,
-            f.obs_u[None], f.obs_v[None], f.obs_r[None],
-            f.inv_s2[None],
-            f.stereo.astype(jnp.float32)[None],
-            (f.base_ok & active_flat).astype(jnp.float32)[None],
-            jnp.where(use_huber, 1.0, 0.0) * one,
-            cam.fx * one, cam.fy * one, cam.cx * one, cam.cy * one,
-            cam.bf * one,
-            jnp.zeros((NIN - 27, Q), jnp.float32),
-        ],
-        0,
-    ).reshape(NIN, O, P)
-    outq, outp = lm_obs_pallas(inp)
-    # E is ONE-HOT: bf16 passes represent its 0/1 entries exactly, so
-    # the 3-pass HIGH precision loses nothing material over the 6-pass
-    # package default while halving the MXU work.
-    red = jax.lax.dot(
-        outq[:42].reshape(42, Q), f.E, precision=jax.lax.Precision.HIGH
-    ).T  # (C,42)
-    cost = jnp.sum(outp[12])
-    if axis is not None:
-        red = jax.lax.psum(red, axis)
-        cost = jax.lax.psum(cost, axis)
-    return _FlatSystem(
-        red=red,
-        Hpp=outp[:9].T.reshape(P, 3, 3),
-        bp=outp[9:12].T,
-        Bq=outq[42:60].reshape(18, Q),
-        cost=cost,
-    )
-
-
 def _flat_system(
     cam, T_all, p_w, prob: BAProblem, f: _FlatObs, active_flat,
     use_huber, axis=None,
@@ -522,13 +466,10 @@ def _flat_system(
 
     With ``axis`` set (inside shard_map, points sharded over the mesh)
     the camera-system reductions — the incidence matmul and the cost —
-    are psum-combined over ICI; the per-point work stays device-local.
+    are psum-combined across devices; the per-point work stays
+    device-local.
     """
     C, P, O = prob.C, prob.P, prob.obs_cam.shape[1]
-    if jax.default_backend() == "tpu" and P % 512 == 0 and O % 8 == 0:
-        return _flat_system_kernel(
-            cam, T_all, p_w, prob, f, active_flat, use_huber, axis=axis
-        )
     pr = _flat_project(cam, T_all, p_w, f)
     wu, wv, wr, mask = _flat_weights(f, pr["zr"], active_flat)
     delta2 = jnp.where(f.stereo, CHI2_STEREO, CHI2_MONO)
@@ -587,8 +528,8 @@ def _flat_system(
 
     # ---- camera blocks via ONE incidence matmul ----------------------
     # columns: Hcc upper-triangle-full 36 + bc 6 = 42.  Stacked along
-    # axis 0 — a (42, Q) lane-dense layout; the (Q, 42) stack pads its
-    # 42-wide minor dim to 128 lanes on every elementwise consumer.
+    # axis 0 — a (42, Q) layout with Q contiguous, rather than a (Q, 42)
+    # stack with a 42-wide minor dimension on every elementwise consumer.
     cam_cols = [rowsum(Jc_cols[i], Jc_cols[j]) for i in range(6) for j in range(6)]
     cam_cols += [rowsum(Jc_cols[i], rrow) for i in range(6)]
     camMt = jnp.stack(cam_cols, 0)  # (42, Q)
@@ -733,9 +674,8 @@ def lm_solve(
     # pass carries its robustified cost, which IS the accept/reject
     # test; a rejected step re-solves from the cached system with a
     # larger lambda (g2o's factorization-retry).  Unrolled instead of
-    # lax.scan: a TPU loop step synchronizes the whole core per
-    # iteration, which dominates when the body is a handful of small-C
-    # matmuls (same finding as optim/pose.py).
+    # lax.scan: the body is a handful of small-C matmuls, so a device
+    # loop's per-step overhead would dominate (as in optim/pose.py).
     sysc = system(prob.T_cw, prob.p_w)
     T, p, lam, cost = prob.T_cw, prob.p_w, lam0_arr, sysc.cost
     for _ in range(iters):

@@ -2,10 +2,11 @@
 
 The reference has NO distributed backend — its concurrency is 4-5 POSIX
 threads over a mutex-guarded shared map (SURVEY.md §2c).  This module is
-the TPU-native replacement: observations (the dominant axis of BA work)
-are sharded over a ``jax.sharding.Mesh`` axis, each device accumulates
-its block of the normal equations, and the reduced system is
-``psum``-combined over ICI and solved replicated.  The same pattern
+the multi-device replacement: observations (the dominant axis of BA
+work) are sharded over a ``jax.sharding.Mesh`` axis, each device
+accumulates its block of the normal equations, and the reduced system is
+``psum``-combined (NCCL over NVLink between the cards of a host) and
+solved replicated.  The same pattern
 scales the Schur-complement local/global BA (optim/schur.py) to
 multi-host meshes: camera blocks replicate, landmark blocks stay
 device-local, only the (small) reduced camera system crosses the
@@ -81,7 +82,7 @@ def sharded_ba_step(
       * residuals/Jacobians for local observations,
       * exact 3x3 landmark marginalization (Hpp^-1, local),
       * partial camera-diagonal blocks, Schur off-diagonal blocks and
-        reduced rhs — each psum-reduced over ICI,
+        reduced rhs — each psum-reduced across the mesh,
       * the (6C, 6C) reduced camera system solved replicated,
       * landmark back-substitution entirely local (no communication).
 

@@ -4,9 +4,9 @@ The reference's inverted file is a single-threaded in-memory index
 (src/keyFrameDatabase.cpp).  At scale, this framework's dense score
 table (slam/retrieval.py) shards its KEYFRAME axis over the device
 mesh: every device scores the query against its keyframe block
-(presence matmul + L1 histogram distance ride the MXU/VPU locally),
-then per-device top-k results are all-gathered and merged — the
-candidate set crosses ICI, the (K, N_WORDS) histograms never move.
+(presence matmul + L1 histogram distance, locally), then per-device
+top-k results are all-gathered and merged — only the candidate set
+crosses the interconnect, the (K, N_WORDS) histograms never move.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def score_all_sharded(mesh: Mesh, idx: RetrievalIndex, query_hist: jax.Array):
     """Keyframe-sharded equivalent of ``retrieval.score_all``: each
     device scores its keyframe block (the (K_shard, N_WORDS) histograms
     and presence rows stay local; only the query histogram replicates),
-    then the tiny (K,) results all-gather over ICI.
+    then the tiny (K,) results all-gather across the mesh.
 
     Bit-exact with score_all — the PRODUCTION loop detector calls this
     when more than one device is visible, so every downstream gate

@@ -505,7 +505,7 @@ def recompute_covis_all(m: MapState) -> MapState:
     keyframes change too (loop-side points absorb current-side obs).
 
     weight(i, j) = #shared points = (A^T A)[i, j] with A the (M, K)
-    point-observer incidence — one MXU matmul per M-block instead of
+    point-observer incidence — one matmul per M-block instead of
     K gather-heavy row updates.  Spanning tree and parents untouched.
     """
     K, M, O = m.K, m.M, m.O
@@ -552,10 +552,9 @@ def update_covisibility(m: MapState, kf_id) -> MapState:
     # Weights are counted from the points' OBSERVATION lists, exactly as
     # the reference iterates observation dicts (keyFrame.cpp:42-54): for
     # every point bound to this keyframe, each live observation votes
-    # for its keyframe.  A dense (N, O, K) compare-reduce replaces the
-    # previous (K, N)-sized gather from the (M,) membership table —
-    # XLA lowers that gather to a ~4ms serial fusion on TPU, while the
-    # 16M-element compare runs wide on the VPU in tens of microseconds.
+    # for its keyframe.  A dense (N, O, K) compare-reduce replaces a
+    # (K, N)-sized gather from the (M,) membership table: elementwise
+    # work that fuses, instead of a large gather.
     # (Obs lists cap at O slots; points observed by >O keyframes
     # undercount — the same points saturate any local window anyway.)
     idc = jnp.clip(ids, 0, m.M - 1)

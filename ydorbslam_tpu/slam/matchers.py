@@ -5,9 +5,9 @@ Replaces the reference's 9 ``OrbMatcher::search*/fuse*`` strategies
 candidate lists gathered from the 64x48 occupancy grid; here every
 search is ONE masked (M, N) Hamming distance matrix (ops/hamming.py)
 with the geometric pruning expressed as boolean masks — projection
-windows, octave gates, view-cos radii, epipolar bands.  On TPU the
-dense matrix is cheaper than gathers, vectorizes the ratio tests, and
-makes duplicate resolution (two sources claiming one keypoint) an exact
+windows, octave gates, view-cos radii, epipolar bands.  The dense form
+avoids gathers, vectorizes the ratio tests, and makes duplicate
+resolution (two sources claiming one keypoint) an exact
 argmin instead of the reference's insertion-order overwrite.
 
 Shared constants: TH_HIGH=100, TH_LOW=50, HISTO=30
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from ..geometry.camera import CameraIntrinsics
 from ..geometry.se3 import inv_T
 from ..ops.extractor import FrameFeatures
+from ..ops.best2 import best2
 from ..ops.hamming import (
     INVALID_DIST,
     masked_distance_matrix,
@@ -34,14 +35,8 @@ TH_HIGH = 100
 TH_LOW = 50
 
 
-def _use_pallas_matchers() -> bool:
-    """Pallas matcher kernels on real TPU; XLA dense formulation
-    elsewhere (CPU tests, interpret mode is too slow for full runs)."""
-    return jax.default_backend() == "tpu"
-
-
 def _pack_src_attr(u, v, ur, rad_narrow, rad_wide, oct_lo, oct_hi, valid):
-    """Row-side attribute pack for ops.pallas_kernels.proj_best2_pallas."""
+    """Row-side attribute lanes for ops.best2 (A_* layout), (M, 8)."""
     f = jnp.float32
     return jnp.stack(
         [
@@ -55,7 +50,7 @@ def _pack_src_attr(u, v, ur, rad_narrow, rad_wide, oct_lo, oct_hi, valid):
 
 
 def _pack_cur_attr(curr: FrameFeatures):
-    """Column-side attribute pack (current-frame keypoints)."""
+    """Column-side attribute lanes (B_* layout) of the current frame."""
     f = jnp.float32
     z = jnp.zeros_like(curr.angle)
     return jnp.stack(
@@ -66,6 +61,13 @@ def _pack_cur_attr(curr: FrameFeatures):
         ],
         axis=-1,
     )
+
+
+def _best2_one(desc_a, attr_a, desc_b, attr_b, mode, check_ur=False):
+    """ops.best2 on a single (row set, column set) pair."""
+    outs = best2(desc_a[None], attr_a[None], desc_b[None], attr_b[None],
+                 mode, check_ur)
+    return [tuple(x[0] for x in o) for o in outs]
 
 
 def _resolve_columns(idx, dist, row_ok, n_cols: int):
@@ -285,49 +287,18 @@ def match_motion_model_two(
     r_narrow = (th_narrow * scales[last.octave])[:, None]
     r_wide = (th_wide * scales[last.octave])[:, None]
 
-    if _use_pallas_matchers():
-        from ..ops.pallas_kernels import proj_best2_pallas
-
-        attr_a = _pack_src_attr(
-            proj.uv[:, 0], proj.uv[:, 1], proj.ur,
-            r_narrow[:, 0], r_wide[:, 0], oct_lo, oct_hi, proj.valid,
-        )
-        (i_n, bn, _), (i_w, bw, _) = proj_best2_pallas(
-            last.desc, attr_a, curr.desc, _pack_cur_attr(curr), check_ur=True,
-        )
-        N = curr.valid.shape[0]
-
-        def finish_vec(idx, b1):
-            assign, _ = _resolve_columns(idx, b1, b1 <= max_dist, N)
-            matched = assign >= 0
-            ang_src = last.angle[jnp.clip(assign, 0, last.angle.shape[0] - 1)]
-            keep = rotation_histogram_mask(
-                curr.angle, ang_src, matched, n_bins=histo_bins
-            )
-            return jnp.where(keep, assign, -1)
-
-        return finish_vec(i_n, bn), finish_vec(i_w, bw)
-
-    du = jnp.abs(curr.uv[None, :, 0] - proj.uv[:, None, 0])
-    dv = jnp.abs(curr.uv[None, :, 1] - proj.uv[:, None, 1])
-    oct_ok = (curr.octave[None, :] >= oct_lo[:, None]) & (
-        curr.octave[None, :] <= oct_hi[:, None]
+    attr_a = _pack_src_attr(
+        proj.uv[:, 0], proj.uv[:, 1], proj.ur,
+        r_narrow[:, 0], r_wide[:, 0], oct_lo, oct_hi, proj.valid,
     )
-    has_r = curr.right_u[None, :] >= 0
-    dur = jnp.abs(curr.right_u[None, :] - proj.ur[:, None])
-    win_wide = (du <= r_wide) & (dv <= r_wide) & jnp.where(
-        has_r, dur <= r_wide, True
+    (i_n, bn, _), (i_w, bw, _) = _best2_one(
+        last.desc, attr_a, curr.desc, _pack_cur_attr(curr), "window2",
+        check_ur=True,
     )
-    win_narrow = (du <= r_narrow) & (dv <= r_narrow) & jnp.where(
-        has_r, dur <= r_narrow, True
-    )
-    d = masked_distance_matrix(
-        last.desc, curr.desc, proj.valid, curr.valid, oct_ok & win_wide
-    )
-    d = jnp.where(d <= max_dist, d, INVALID_DIST)
+    N = curr.valid.shape[0]
 
-    def finish(dm):
-        assign, _ = resolve_unique(dm)
+    def finish(idx, b1):
+        assign, _ = _resolve_columns(idx, b1, b1 <= max_dist, N)
         matched = assign >= 0
         ang_src = last.angle[jnp.clip(assign, 0, last.angle.shape[0] - 1)]
         keep = rotation_histogram_mask(
@@ -335,9 +306,7 @@ def match_motion_model_two(
         )
         return jnp.where(keep, assign, -1)
 
-    assign_wide = finish(d)
-    assign_narrow = finish(jnp.where(win_narrow, d, INVALID_DIST))
-    return assign_narrow, assign_wide
+    return finish(i_n, bn), finish(i_w, bw)
 
 
 def predict_scale_level(
@@ -400,25 +369,17 @@ def match_local_points(
     pred = predict_scale_level(dist, 1.2 * mp_max_dist, n_levels, scale_factor)
     radius = jnp.where(view_cos > 0.998, 2.5, 4.0) * scales[pred] * th
     proj = proj._replace(valid=frustum_ok)
-    if _use_pallas_matchers():
-        from ..ops.pallas_kernels import proj_best2_pallas
-
-        attr_a = _pack_src_attr(
-            proj.uv[:, 0], proj.uv[:, 1], proj.ur, radius, radius,
-            pred - 1, pred, proj.valid,
-        )
-        (idx, b1, b2), _ = proj_best2_pallas(
-            mp_desc, attr_a, curr.desc, _pack_cur_attr(curr), check_ur=False,
-        )
-        row_ok = (b1 <= max_dist) & (
-            b1.astype(jnp.float32) < ratio * b2.astype(jnp.float32)
-        )
-        res = _resolve_columns(idx, b1, row_ok, curr.valid.shape[0])
-        return (*res, frustum_ok) if return_visible else res
-    res = search_by_projection(
-        curr, mp_desc, proj, radius, pred - 1, pred,
-        max_dist=max_dist, ratio=ratio,
+    attr_a = _pack_src_attr(
+        proj.uv[:, 0], proj.uv[:, 1], proj.ur, radius, radius,
+        pred - 1, pred, proj.valid,
     )
+    ((idx, b1, b2),) = _best2_one(
+        mp_desc, attr_a, curr.desc, _pack_cur_attr(curr), "window",
+    )
+    row_ok = (b1 <= max_dist) & (
+        b1.astype(jnp.float32) < ratio * b2.astype(jnp.float32)
+    )
+    res = _resolve_columns(idx, b1, row_ok, curr.valid.shape[0])
     return (*res, frustum_ok) if return_visible else res
 
 
@@ -438,55 +399,31 @@ def match_dense(
 
     Replaces the BoW-bucketed brute force of searchByBowInKeyFrameAndFrame
     / ...InTwoKeyFrames (src/orbMatcher.cpp:303-462): the vocabulary
-    bucketing existed to prune CPU work; on the MXU/VPU the full dense
-    matrix is faster and strictly higher recall.  Keeps the TH_LOW=50
+    bucketing existed to prune CPU work; the full dense search is one
+    batched pass and strictly higher recall.  Keeps the TH_LOW=50
     gate, best/second ratio and rotation histogram.
 
     Returns (assign (B,) index into a per b-keypoint or -1, dist (B,)).
     """
-    if _use_pallas_matchers():
-        from ..ops.pallas_kernels import proj_best2_pallas
-
-        f = jnp.float32
-        M, B = desc_a.shape[0], desc_b.shape[0]
-        za, zb = jnp.zeros((M,), f), jnp.zeros((B,), f)
-        wide = jnp.full((M,), 1e9, f)
-        attr_a = _pack_src_attr(
-            za, za, za, wide, wide,
-            jnp.full((M,), -1.0, f), jnp.full((M,), 1e9, f), valid_a,
-        )
-        attr_b = jnp.stack(
-            [zb, zb, zb - 1.0, zb, valid_b.astype(f), zb, zb, zb], axis=-1
-        )
-        (idx, b1, b2), _ = proj_best2_pallas(
-            desc_a, attr_a, desc_b, attr_b, check_ur=False,
-        )
-        b2c = jnp.minimum(b2, 256)
-        row_ok = (b1 <= max_dist) & (
-            b1.astype(f) < ratio * b2c.astype(f)
-        )
-        assign, dist = _resolve_columns(idx, b1, row_ok, B)
-        matched = assign >= 0
-        ang_a = angle_a[jnp.clip(assign, 0, angle_a.shape[0] - 1)]
-        keep = jnp.where(
-            use_rotation,
-            rotation_histogram_mask(angle_b, ang_a, matched),
-            matched,
-        )
-        return jnp.where(keep, assign, -1), dist
-    d = masked_distance_matrix(desc_a, desc_b, valid_a, valid_b)
-    vals, _ = jax.lax.top_k(-d, 2)
-    b1, b2 = -vals[:, 0], -vals[:, 1]
+    # No geometric gate: an unbounded window and octave range.
+    f = jnp.float32
+    M, B = desc_a.shape[0], desc_b.shape[0]
+    za, zb = jnp.zeros((M,), f), jnp.zeros((B,), f)
+    wide = jnp.full((M,), 1e9, f)
+    attr_a = _pack_src_attr(
+        za, za, za, wide, wide, jnp.full((M,), -1.0, f), wide, valid_a,
+    )
+    attr_b = jnp.stack(
+        [zb, zb, zb - 1.0, zb, valid_b.astype(f), zb, zb, zb], axis=-1
+    )
+    ((idx, b1, b2),) = _best2_one(desc_a, attr_a, desc_b, attr_b, "window")
     # A row with a single candidate has second-best = INVALID_DIST, which
     # would make the ratio test vacuous; clamp to 256 — the reference's
     # bestDist2 initialization (orbMatcher.cpp:318) — so a lone candidate
     # faces the same gate it would there.
     b2 = jnp.minimum(b2, 256)
-    row_ok = (b1 <= max_dist) & (
-        b1.astype(jnp.float32) < ratio * b2.astype(jnp.float32)
-    )
-    d = jnp.where(row_ok[:, None], d, INVALID_DIST)
-    assign, dist = resolve_unique(d)
+    row_ok = (b1 <= max_dist) & (b1.astype(f) < ratio * b2.astype(f))
+    assign, dist = _resolve_columns(idx, b1, row_ok, B)
     matched = assign >= 0
     ang_a = angle_a[jnp.clip(assign, 0, angle_a.shape[0] - 1)]
     keep = jnp.where(

@@ -1,11 +1,10 @@
 """Device-resident pipelined tracking: one dispatch, zero syncs per frame.
 
-Why this exists: on a TPU the per-frame math of tracking costs ~2 ms,
-but every host<->device round trip costs tens of ms (remote-dispatch
-latency).  The synchronous Tracker (slam/tracking.py) reads several
-scalars per frame to drive its state machine — correct, but
-latency-bound.  This module moves the WHOLE per-frame state machine
-into one jitted step over a device-resident ``TrackState``:
+Why this exists: the synchronous Tracker (slam/tracking.py) reads
+several scalars per frame to drive its state machine — correct, but
+every read is a host<->device synchronization that leaves the device
+idle while the host decides.  This module moves the WHOLE per-frame
+state machine into one jitted step over a device-resident ``TrackState``:
 
   * extraction, depth association, motion-model matching (both window
     widths computed, selected by match count), pose LM, local-map
@@ -293,10 +292,10 @@ def _track_core(
     # dense appearance match against the LAST tracked frame's landmark
     # set.  The failure decision is made on MATCH COUNTS (the reference's
     # own pre-LM gate), so one shared pose LM serves both branches — its
-    # observations and initial pose are selected per branch.  (A
-    # lax.cond-deferred second LM deadlocks the remote TPU runtime, and
-    # the post-LM <10-inlier fallback path it would add is rare enough
-    # to leave to relocalization, as documented here.)
+    # observations and initial pose are selected per branch.  (The
+    # post-LM <10-inlier fallback path a second, lax.cond-deferred LM
+    # would add is rare enough to leave to relocalization, as
+    # documented here.)
     motion_viable = jnp.sum(assign >= 0) >= 20
     fb_assign, _ = match_dense(
         state.last.desc, state.last.valid & state.last_lms_valid,

@@ -4,7 +4,7 @@ The reference scores BoW vectors from a 10^5-word hierarchical k-means
 vocabulary (thirdParty/DBow3, loaded from ORBvoc.txt at startup,
 src/system.cpp:37-38) through an inverted file
 (src/keyFrameDatabase.cpp).  A vocabulary file does not exist here and a
-tree walk is a poor fit for the MXU, so the TPU-native design is
+tree walk is a poor fit for dense batched scoring, so the design is
 vocabulary-free multi-bank LSH:
 
   * each 256-bit descriptor hashes into H=4 banks of 4096 words (12
@@ -17,7 +17,7 @@ vocabulary-free multi-bank LSH:
   * similarity = L1 BoW score s(v,w) = 1 - 0.5*|v/|v| - w/|w||_1 —
     identical to DBoW3's L1 scoring (ScoringObject.cpp) — computed
     dense against every keyframe at once (no inverted file: the full
-    score table IS the fast path on TPU, and shards over hosts by
+    score table is one batched pass, and shards over devices by
     keyframe block).
 
 Candidate gating reproduces KeyFrameDatabase::detectLoopCandidates /
@@ -133,7 +133,7 @@ def remove_keyframe(idx: RetrievalIndex, kf_id) -> RetrievalIndex:
 def score_all(idx: RetrievalIndex, query_hist: jax.Array):
     """-> (common_words (K,), l1_score (K,)) of the query vs every KF.
 
-    common words on the MXU (presence matmul); L1 score via
+    common words as a presence matmul; L1 score via
     sum(min(v,w)) = 0.5*(|v|+|w|-|v-w|) = 1 - 0.5*|v-w| for normalized
     histograms (DBoW3 L1 scoring).
     """

@@ -2,11 +2,11 @@
 
 The reference's Viewer/FrameDrawer/MapDrawer (src/viewer.cpp,
 src/frameDrawer.cpp, src/mapDrawer.cpp) render live through Pangolin +
-OpenCV HighGUI.  A TPU host is headless, so visualization here is
-offline PNG rendering via PIL: a top-down map view (points, keyframe
-frusta footprint, covisibility edges, trajectory) and an annotated
-frame view (tracked keypoints + status bar) — the same information,
-file-based.  Not a correctness dependency (the reference also runs with
+OpenCV HighGUI.  An accelerator host is often headless, so
+visualization here is offline PNG rendering via PIL: a top-down map
+view (points, keyframe frusta footprint, covisibility edges,
+trajectory) and an annotated frame view (tracked keypoints + status
+bar) — the same information, file-based.  Not a correctness dependency (the reference also runs with
 the viewer off, src/system.hpp:41).
 """
 from __future__ import annotations
@@ -100,7 +100,7 @@ class PeriodicViewer:
     (src/viewer.cpp:37-121) as a frame-cadence hook.
 
     The reference's Viewer wakes every ~30 ms and redraws the map and
-    the annotated frame; on a headless TPU host the same information is
+    the annotated frame; on a headless host the same information is
     written as numbered PNGs every ``every`` tracked frames.  Attach via
     ``SlamSystem.attach_viewer(out_dir)``; the system calls ``maybe_draw``
     from both tracking paths.  Rendering pulls host copies of the map
